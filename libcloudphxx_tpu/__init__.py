@@ -1,9 +1,9 @@
-"""libcloudphxx_tpu — a TPU-native cloud-microphysics framework.
+"""libcloudphxx_tpu — a JAX cloud-microphysics framework.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of
 igfuw/libcloudph++ (see SURVEY.md): the blk_1m and blk_2m bulk schemes and
 the Lagrangian super-droplet method (lgrngn), on a common physics
-foundation, scaled over TPU meshes via jax.sharding.
+foundation, scaled over device meshes via jax.sharding.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """blk_1m — single-moment bulk (Kessler warm rain + Grabowski-1999 ice A/B).
 
-TPU-native re-implementation of reference include/libcloudph++/blk_1m/
+JAX re-implementation of reference include/libcloudph++/blk_1m/
 (see SURVEY.md section 2.4).  Public surface mirrors the reference's four free
 functions + opts struct, in functional (return-new-arrays) form.
 """

@@ -1,6 +1,6 @@
 """Saturation adjustment for the single-moment bulk scheme.
 
-TPU-native equivalents of reference include/libcloudph++/blk_1m/adj_cellwise.hpp.
+JAX equivalent of reference include/libcloudph++/blk_1m/adj_cellwise.hpp.
 The reference loops per cell with either a Newton-Raphson iteration
 (adj_cellwise.hpp:90-182) or an adaptive RK4 path integration driven by a
 per-cell ``while`` (adj_cellwise.hpp:186-319).  Here both are whole-grid

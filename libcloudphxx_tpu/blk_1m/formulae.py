@@ -1,9 +1,9 @@
 """Single-moment bulk (Kessler) warm-rain and Grabowski-1999 ice formulae.
 
-TPU-native equivalents of reference include/libcloudph++/blk_1m/formulae.hpp.
+JAX equivalent of reference include/libcloudph++/blk_1m/formulae.hpp.
 All functions are branchless elementwise jnp expressions: the reference's
 per-cell early-return guards (``if (x == 0) return 0``) become mask-and-select
-with NaN-safe denominators, so a whole grid evaluates in one fused VPU pass.
+with NaN-safe denominators, so a whole grid evaluates in one fused elementwise pass.
 """
 
 import jax.numpy as jnp

@@ -1,6 +1,6 @@
 """Options for the single-moment bulk scheme.
 
-TPU-native equivalent of reference include/libcloudph++/blk_1m/options.hpp:15-46.
+JAX equivalent of reference include/libcloudph++/blk_1m/options.hpp:15-46.
 The struct is a frozen dataclass of *static* (trace-time) switches: each distinct
 combination compiles to its own XLA program with dead branches removed, mirroring
 the reference's compile-time inlining of the `if (opts.x)` guards.

@@ -1,6 +1,6 @@
 """Cell-wise right-hand-side terms for the single-moment bulk scheme.
 
-TPU-native equivalents of reference include/libcloudph++/blk_1m/rhs_cellwise.hpp.
+JAX equivalent of reference include/libcloudph++/blk_1m/rhs_cellwise.hpp.
 Functional style: each function returns updated copies of the tendency arrays
 it would have accumulated into in the reference.
 """

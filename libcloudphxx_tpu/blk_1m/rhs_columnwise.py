@@ -1,6 +1,6 @@
 """Column-wise (sedimentation) right-hand-side terms for blk_1m.
 
-TPU-native equivalents of reference include/libcloudph++/blk_1m/rhs_columnwise.hpp.
+JAX equivalent of reference include/libcloudph++/blk_1m/rhs_columnwise.hpp.
 The reference walks each column top-down carrying an edge flux; here the walk
 becomes shifted-array arithmetic over the whole grid at once (the vertical is
 the LAST axis, index 0 = lowest level, matching the reference's

@@ -1,6 +1,6 @@
 """blk_2m — double-moment bulk scheme (Morrison & Grabowski 2007).
 
-TPU-native re-implementation of reference include/libcloudph++/blk_2m/
+JAX re-implementation of reference include/libcloudph++/blk_2m/
 (see SURVEY.md section 2.4): activation over lognormal aerosol modes,
 relaxation condensation/evaporation, KK2000 autoconversion/accretion with
 number sinks, and two-moment sedimentation.

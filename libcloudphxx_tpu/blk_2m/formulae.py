@@ -1,6 +1,6 @@
 """Double-moment (Morrison & Grabowski 2007) bulk formulae.
 
-TPU-native equivalents of reference include/libcloudph++/blk_2m/*.hpp
+JAX equivalent of reference include/libcloudph++/blk_2m/*.hpp
 (common_formulae, activation_formulae, cond_evap_formulae,
 autoconversion_formulae, accretion_formulae, collision_sink_formulae,
 terminal_vel_formulae).  Branchless elementwise jnp; piecewise fall-speed

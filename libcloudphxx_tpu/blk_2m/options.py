@@ -1,6 +1,6 @@
 """Options for the double-moment bulk scheme.
 
-TPU-native equivalent of reference include/libcloudph++/blk_2m/options.hpp:17-52.
+JAX equivalent of reference include/libcloudph++/blk_2m/options.hpp:17-52.
 Static frozen dataclass: process switches specialize the compiled program;
 the aerosol spectrum is a tuple of lognormal modes unrolled at trace time
 (the reference also loops over the mode vector per cell).

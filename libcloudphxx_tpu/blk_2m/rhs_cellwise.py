@@ -1,6 +1,6 @@
 """Cell-wise right-hand side for the double-moment bulk scheme.
 
-TPU-native equivalent of reference include/libcloudph++/blk_2m/rhs_cellwise.hpp.
+JAX equivalent of reference include/libcloudph++/blk_2m/rhs_cellwise.hpp.
 The reference's per-cell chain (activation -> cond/evap -> limiters ->
 autoconversion -> accretion -> collision N sink) with its sequential
 cloud/rain-limiter flags becomes a single branchless program over the grid:

@@ -1,6 +1,6 @@
 """Two-moment rain sedimentation.
 
-TPU-native equivalent of reference include/libcloudph++/blk_2m/rhs_columnwise.hpp.
+JAX equivalent of reference include/libcloudph++/blk_2m/rhs_columnwise.hpp.
 Separate mass- and number-weighted terminal momenta; each edge flux is capped
 by the mass/number available in the donor cell within dt (including prior
 cellwise tendencies), exactly as the reference.  The reference's top-down

@@ -1,6 +1,6 @@
 """Common physics foundation shared by all microphysics schemes.
 
-TPU-native re-implementation of the reference header library
+JAX re-implementation of the reference header library
 include/libcloudph++/common/ (see SURVEY.md section 2.5).
 """
 

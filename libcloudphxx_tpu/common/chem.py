@@ -1,6 +1,6 @@
 """Aqueous-chemistry constants and temperature dependences.
 
-TPU-native equivalents of reference include/libcloudph++/common/{chem,henry,
+JAX equivalent of reference include/libcloudph++/common/{chem,henry,
 dissoc,react,molar_mass}.hpp.  Species indexing mirrors chem.hpp:9-22 so the
 per-SD chemistry arrays line up with the reference's strided vector layout.
 """

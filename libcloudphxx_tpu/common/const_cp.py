@@ -1,6 +1,6 @@
 """Clausius-Clapeyron saturation formulas with constant specific heats.
 
-TPU-native equivalents of reference include/libcloudph++/common/const_cp.hpp.
+JAX equivalent of reference include/libcloudph++/common/const_cp.hpp.
 """
 
 import jax.numpy as jnp

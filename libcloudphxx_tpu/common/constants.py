@@ -1,10 +1,10 @@
 """Physical constants shared by all schemes.
 
-TPU-native re-derivation of the reference constant set
+JAX re-derivation of the reference constant set
 (reference: include/libcloudph++/common/{moist_air,const_cp,earth,theta_std}.hpp).
 Values are plain Python floats (double precision); array functions downstream
-cast to the working dtype of their inputs, so the library runs in f32 on TPU
-and f64 on CPU for parity tests.
+cast to the working dtype of their inputs, so the library runs in f32 by
+default and in f64 (x64 enabled) for parity tests.
 """
 
 import math

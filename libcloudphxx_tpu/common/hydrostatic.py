@@ -1,6 +1,6 @@
 """Hydrostatic pressure profile.
 
-TPU-native equivalent of reference include/libcloudph++/common/hydrostatic.hpp.
+JAX equivalent of reference include/libcloudph++/common/hydrostatic.hpp.
 """
 
 import jax.numpy as jnp

@@ -1,7 +1,7 @@
 """Ice nucleation: singular (Shima 2020) and time-dependent (Arabas 2025,
 Koop & Murray 2016) freezing.
 
-TPU-native equivalents of reference
+JAX equivalent of reference
 include/libcloudph++/common/ice_nucleation.hpp.
 """
 

@@ -1,6 +1,6 @@
 """kappa-Koehler hygroscopicity parameterisation (Petters & Kreidenweis 2007).
 
-TPU-native equivalents of reference include/libcloudph++/common/kappa_koehler.hpp.
+JAX equivalent of reference include/libcloudph++/common/kappa_koehler.hpp.
 Root solves are batched fixed-iteration bracketing (ops/rootfind.py) rather
 than the reference's per-element TOMS-748.
 """

@@ -1,6 +1,6 @@
 """Kelvin (curvature) term in the Koehler equation.
 
-TPU-native equivalents of reference include/libcloudph++/common/kelvin_term.hpp.
+JAX equivalent of reference include/libcloudph++/common/kelvin_term.hpp.
 """
 
 import jax.numpy as jnp

@@ -1,6 +1,6 @@
 """Lognormal aerosol size distributions (Seinfeld & Pandis 1997 eqs 7.33-7.34).
 
-TPU-native equivalents of reference include/libcloudph++/common/lognormal.hpp.
+JAX equivalent of reference include/libcloudph++/common/lognormal.hpp.
 """
 
 import jax.numpy as jnp

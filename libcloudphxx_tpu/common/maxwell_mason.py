@@ -1,6 +1,6 @@
 """Maxwell-Mason diffusional droplet growth rate.
 
-TPU-native equivalents of reference include/libcloudph++/common/maxwell-mason.hpp.
+JAX equivalent of reference include/libcloudph++/common/maxwell-mason.hpp.
 """
 
 from . import constants as c

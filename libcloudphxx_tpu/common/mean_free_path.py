@@ -1,6 +1,6 @@
 """Mean free paths for vapour diffusion and heat conduction.
 
-TPU-native equivalents of reference include/libcloudph++/common/mean_free_path.hpp
+JAX equivalent of reference include/libcloudph++/common/mean_free_path.hpp
 (Williams & Loyalka 1991 eqs. 6.6 and 6.33).
 """
 

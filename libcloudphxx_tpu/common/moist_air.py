@@ -1,6 +1,6 @@
 """Moist-air thermodynamic relations.
 
-TPU-native equivalents of reference include/libcloudph++/common/moist_air.hpp.
+JAX equivalent of reference include/libcloudph++/common/moist_air.hpp.
 All functions are pure, elementwise over jnp arrays, dtype-preserving.
 """
 

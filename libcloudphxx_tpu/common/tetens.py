@@ -1,6 +1,6 @@
 """Tetens saturation formulas.
 
-TPU-native equivalents of reference include/libcloudph++/common/tetens.hpp.
+JAX equivalent of reference include/libcloudph++/common/tetens.hpp.
 """
 
 import jax.numpy as jnp

@@ -1,6 +1,6 @@
 """Dry-air potential temperature relations.
 
-TPU-native equivalents of reference include/libcloudph++/common/theta_dry.hpp.
+JAX equivalent of reference include/libcloudph++/common/theta_dry.hpp.
 theta_dry = T * (p_1000 / p_dry)^(R_d/c_pd).
 """
 

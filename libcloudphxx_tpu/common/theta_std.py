@@ -1,6 +1,6 @@
 """Standard potential temperature relations.
 
-TPU-native equivalents of reference include/libcloudph++/common/theta_std.hpp.
+JAX equivalent of reference include/libcloudph++/common/theta_std.hpp.
 """
 
 import jax.numpy as jnp

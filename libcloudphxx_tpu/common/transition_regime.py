@@ -1,6 +1,6 @@
 """Transition-regime correction (Fuchs-Sutugin after Laaksonen et al. 2005).
 
-TPU-native equivalent of reference
+JAX equivalent of reference
 include/libcloudph++/common/transition_regime.hpp.
 """
 

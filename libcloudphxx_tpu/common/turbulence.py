@@ -1,6 +1,6 @@
 """Grabowski & Abade 2017 SGS turbulence formulas.
 
-TPU-native equivalents of reference
+JAX equivalent of reference
 include/libcloudph++/common/GA17_turbulence.hpp and
 include/libcloudph++/common/SGS_length_scale.hpp.
 """

@@ -1,11 +1,10 @@
 """Ventilation coefficients (Smolik et al. 2001).
 
-TPU-native equivalents of reference include/libcloudph++/common/ventil.hpp.
+JAX equivalent of reference include/libcloudph++/common/ventil.hpp.
 """
 
 import jax.numpy as jnp
 
-from .fastmath import cbrt_pos, pow_pos
 
 
 def Re(v_term, r_w, rho, eta):
@@ -15,9 +14,8 @@ def Re(v_term, r_w, rho, eta):
 
 
 def Nu(Pr, Re):
-    """Nusselt number (ventil.hpp:26-44).  cbrt/pow via exp/log so the
-    expression lowers inside the Pallas condensation kernel."""
-    return 1.0 + cbrt_pos(1.0 + Re * Pr) * jnp.maximum(1.0, pow_pos(Re, 0.077))
+    """Nusselt number (ventil.hpp:26-44)."""
+    return 1.0 + jnp.cbrt(1.0 + Re * Pr) * jnp.maximum(1.0, Re ** 0.077)
 
 
 def Sh(Sc, Re):

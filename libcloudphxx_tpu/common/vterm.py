@@ -1,6 +1,6 @@
 """Terminal fall velocity formulas.
 
-TPU-native equivalents of reference include/libcloudph++/common/vterm.hpp.
+JAX equivalent of reference include/libcloudph++/common/vterm.hpp.
 The reference's radius-regime ``if`` branches become branchless ``jnp.where``
 selects so every formula vectorizes over the whole droplet population.
 """

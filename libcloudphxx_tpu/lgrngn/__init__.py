@@ -1,6 +1,6 @@
 """lgrngn — the Lagrangian Super-Droplet Method engine (Shima et al. 2009).
 
-TPU-native re-implementation of reference src/ + include/libcloudph++/lgrngn/
+JAX re-implementation of reference src/ + include/libcloudph++/lgrngn/
 (see SURVEY.md sections 2.1-2.3): fixed-capacity particle state pytrees,
 segment-reduction moments, whole-population implicit condensation, and (in
 later milestones) Monte-Carlo coalescence, transport, and shard_map domain

@@ -1,6 +1,6 @@
 """Aqueous-phase chemistry of the SDM engine.
 
-TPU-native equivalent of reference src/impl/chemistry/ (six .ipp files,
+JAX equivalent of reference src/impl/chemistry/ (six .ipp files,
 ~1.25 kLoC) and src/impl/initialization/particles_impl_init_chem.ipp:
 
   - ``chem_henry``     — implicit (Warneck eq. 8.22) trace-gas dissolution

@@ -1,6 +1,6 @@
 """Monte-Carlo all-or-nothing coalescence (Shima et al. 2009 SDM).
 
-TPU-native equivalent of reference src/impl/coalescence/particles_impl_coal.ipp
+JAX equivalent of reference src/impl/coalescence/particles_impl_coal.ipp
 and src/detail/kernels.hpp.  The thrust shuffle-sort + adjacent-pair for_each
 becomes: one argsort of (cell, random) keys (dead slots pushed past all
 cells), vectorized pair probability/collision math over every adjacent even
@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..common import constants as c
+from . import hskpng
 from . import vterm as vterm_mod
 from .enums import kernel_t
 from .state import State, StaticConfig
@@ -61,114 +62,6 @@ def _kernel_index(r_um):
     return jnp.where(
         r_um <= 100.0, r_um, 100.0 + (r_um - 100.0) / 10.0
     ).astype(jnp.int32)
-
-
-def clamped_efficiency_table(kern: kernel_t):
-    """The tabulated efficiencies as a VMEM-native (128, 128) f32 block,
-    for the in-kernel lookup of the resident Pallas step.
-
-    The reference's expanded tables (201x201, indices up to
-    _kernel_index(r_max)=200) are constant beyond some row/column K —
-    physically, collision efficiency saturates for large collectors — so
-    clamping indices to K while keeping the UNCLAMPED interpolation
-    weights reproduces table[i, j] bit-for-bit whenever K <= 126 (both
-    clamped indices stay inside one 128-lane vector).  The hall family
-    clamps at K=120; vohl_davis_no_waals (K=150) and the non-tabulated
-    kernels return None and stay on the XLA path.
-
-    Returns (table128 f32 ndarray, r_max_um, clamp) or None."""
-    name = TABULATED.get(kern)
-    if name is None:
-        return None
-    ck = ("clamp128", name)
-    if ck not in _TABLE_CACHE:
-        table, r_max = (_TABLE_CACHE[name] if name in _TABLE_CACHE
-                        else (None, None))
-        if table is None:
-            with np.load(os.path.join(_KERNEL_DATA_DIR, f"{name}.npz")) as d:
-                table = np.asarray(d["efficiencies"])
-                r_max = float(d["r_max_um"])
-            _TABLE_CACHE[name] = (table, r_max)
-        K = table.shape[0] - 1
-        while K > 0 and np.array_equal(table[K - 1], table[-1]) \
-                and np.array_equal(table[:, K - 1], table[:, -1]):
-            K -= 1
-        if K > 126:
-            _TABLE_CACHE[ck] = None
-        else:
-            t128 = np.zeros((128, 128), np.float32)
-            t128[:K + 1, :K + 1] = table[:K + 1, :K + 1].astype(np.float32)
-            _TABLE_CACHE[ck] = (t128, r_max, K)
-    return _TABLE_CACHE[ck]
-
-
-def interpolated_efficiency_sweep(clamp, table, r_max_um, rw_a, rw_b):
-    """interpolated_efficiency restated as a row sweep with 128-lane
-    gathers — the form Mosaic can lower (a 2-D dynamic gather cannot).
-
-    Per table row k: one dynamic row slice + two lane gathers
-    (jnp.take_along_axis along the minor axis is a native TPU gather for
-    128-wide int32 indices), selecting into the four bilinear corner
-    accumulators.  The corners then combine in EXACTLY the order
-    interpolated_efficiency uses, and the gathered values are bitwise
-    equal under index clamping (clamped_efficiency_table invariant), so
-    the two lookups agree bit-for-bit (gated by
-    test_pallas_coal_tables).  ``table`` is the (128, 128) padded block;
-    ``clamp`` its saturation index (static)."""
-
-    def prep(r_m):
-        r = jnp.minimum(r_m * 1e6, r_max_um - 1e-6)
-        big = r >= 100.0
-        x0 = jnp.where(big, jnp.floor(r / 10.0) * 10.0, jnp.floor(r))
-        dx = jnp.where(big, 10.0, 1.0)
-        i0 = jnp.minimum(_kernel_index(x0), clamp)
-        i1 = jnp.minimum(_kernel_index(x0 + dx), clamp)
-        w_hi = r - x0        # weight of the upper node
-        w_lo = x0 + dx - r   # weight of the lower node
-        return i0, i1, w_hi, w_lo, dx
-
-    i0, i1, w1h, w1l, d1 = prep(rw_a)
-    j0, j1, w2h, w2l, d2 = prep(rw_b)
-
-    def gather_row(row, idx):
-        # the TPU gather operates within one 128-lane vector: run it at
-        # exactly 128 lanes (pad narrower index blocks, split wider ones
-        # at vreg boundaries) so Mosaic sees only the native form
-        q, cap = idx.shape
-        src = jnp.broadcast_to(row, (q, 128))
-        if cap == 128:
-            return jnp.take_along_axis(src, idx, axis=1)
-        if cap < 128:
-            pad = jnp.zeros((q, 128 - cap), idx.dtype)
-            g = jnp.take_along_axis(
-                src, jnp.concatenate([idx, pad], axis=1), axis=1)
-            return g[:, :cap]
-        assert cap % 128 == 0, "table lookup needs cap % 128 == 0 above 128"
-        return jnp.concatenate(
-            [jnp.take_along_axis(src, idx[:, k * 128:(k + 1) * 128], axis=1)
-             for k in range(cap // 128)], axis=1)
-
-    # STATIC unroll over table rows: Mosaic has no dynamic_slice lowering
-    # inside kernel bodies (a fori_loop carries a traced row index), but
-    # static row slices + the native lane gather lower fine
-    z = jnp.zeros(i0.shape, table.dtype)
-    t00 = t10 = t01 = t11 = z
-    for k in range(clamp + 1):
-        row = table[k:k + 1, :]
-        g0 = gather_row(row, j0)
-        g1 = gather_row(row, j1)
-        m0 = i0 == k
-        m1 = i1 == k
-        t00 = jnp.where(m0, g0, t00)
-        t10 = jnp.where(m1, g0, t10)
-        t01 = jnp.where(m0, g1, t01)
-        t11 = jnp.where(m1, g1, t11)
-    return (
-        t00 * w1l * w2l
-        + t10 * w1h * w2l
-        + t01 * w1l * w2h
-        + t11 * w1h * w2h
-    ) / d1 / d2
 
 
 def interpolated_efficiency(table, r_max_um, rw_a, rw_b):
@@ -325,17 +218,11 @@ def onishi_nograv(r1, r2, Re_l, eps, dnu, ratio_den):
 def kernel_value(cfg: StaticConfig, params, n_a, n_b, rw2_a, rw2_b,
                  vt_a, vt_b, rd3_a, rd3_b,
                  eff_table=None, r_max_um=0.0,
-                 rhod=1.0, eta=1.8e-5, diss_rate=0.0,
-                 eff_fn=None):
+                 rhod=1.0, eta=1.8e-5, diss_rate=0.0):
     """Collision kernel K(a,b) including the max-multiplicity factor
     (reference kernels.hpp:40-255).  ``params`` = opts_init.kernel_parameters
     as a device array (may be empty); ``eff_table`` the dense tabulated
-    efficiencies for the table-based kernels; ``eff_fn`` overrides the
-    lookup implementation (the Pallas kernel passes the sweep form with
-    its clamped 128x128 table bound — same signature as
-    interpolated_efficiency)."""
-    if eff_fn is None:
-        eff_fn = interpolated_efficiency
+    efficiencies for the table-based kernels."""
     kern = kernel_t(cfg.kernel)
     n_max = jnp.maximum(n_a, n_b)
     if kern == kernel_t.golovin:
@@ -373,7 +260,7 @@ def kernel_value(cfg: StaticConfig, params, n_a, n_b, rw2_a, rw2_b,
                 kernel_t.hall_pinsky_stratocumulus,
                 kernel_t.vohl_davis_no_waals):
         # (kernels.hpp:179-207)
-        return geo * eff_fn(eff_table, r_max_um, rw_a, rw_b)
+        return geo * interpolated_efficiency(eff_table, r_max_um, rw_a, rw_b)
     if kern in (kernel_t.onishi_hall, kernel_t.onishi_hall_davis_no_waals):
         # turbulent kernel (kernels.hpp:210-255): stagnant efficiency x Wang
         # enhancement x sqrt(geometric^2 + onishi^2); params[0] doubles as
@@ -383,7 +270,7 @@ def kernel_value(cfg: StaticConfig, params, n_a, n_b, rw2_a, rw2_b,
         nograv = onishi_nograv(
             rw_a, rw_b, params[0], diss_rate, eta / rhod, c.rho_w / rhod
         ) * n_max
-        eff = eff_fn(eff_table, r_max_um, rw_a, rw_b)
+        eff = interpolated_efficiency(eff_table, r_max_um, rw_a, rw_b)
         enh = wang_enhancement(rw_a, rw_b, params[0])
         return eff * enh * jnp.sqrt(geo * geo + nograv * nograv)
     raise NotImplementedError(f"lgrngn: kernel {kern} not implemented yet")
@@ -391,7 +278,7 @@ def kernel_value(cfg: StaticConfig, params, n_a, n_b, rw2_a, rw2_b,
 
 def _shift_up(arr):
     """arr[i+1] with the last element repeated — a contiguous slice instead
-    of a gather (TPU random-index gathers are scalar-slow)."""
+    of a gather."""
     return jnp.concatenate([arr[1:], arr[-1:]])
 
 
@@ -412,11 +299,9 @@ def coal_substep(cfg: StaticConfig, state: State, params, dt, key,
     """One coalescence substep over the whole population
     (reference particles_impl_coal.ipp:273-546).
 
-    TPU note: the shuffle-sort carries every pair-needed SD attribute as a
-    sort *value* (one multi-operand lax.sort), so the pairing needs no
-    permutation gathers — random-index gathers of (n_sd,) arrays are the
-    single slowest op class on TPU, while values riding the sort network
-    move at sort speed."""
+    The shuffle-sort carries every pair-needed SD attribute as a sort
+    *value* (one multi-operand lax.sort), so the pairing needs no
+    permutation gathers."""
     n_sd = cfg.n_sd_max
     dead = state.n <= 0
     cellkey = jnp.where(dead, jnp.int32(cfg.n_cell),
@@ -535,10 +420,8 @@ def coal_substep(cfg: StaticConfig, state: State, params, dt, key,
     )
 
     # apply the pair outcome IN SORTED SPACE (lane p holds the pair math;
-    # lane p+1 reads it through a shift), then ONE sort by the original slot
-    # index restores attribute order — measured ~4x cheaper than the four
-    # random-index scatters it replaces (TPU scatters are the slowest op
-    # class; multi-operand sorts run on the sort network)
+    # lane p+1 reads it through a shift), then one scatter by the original
+    # slot index restores attribute order (hskpng.unpermute)
     hp = _shift_down_mask(happened)
     bigp = _shift_down(a_is_big)
 
@@ -574,7 +457,7 @@ def coal_substep(cfg: StaticConfig, state: State, params, dt, key,
         row = jnp.where(hp & bigp, _shift_down(t_max), row)
         back_vals.append(row)
 
-    unsorted = jax.lax.sort((orig,) + tuple(back_vals), num_keys=1)[1:]
+    unsorted = hskpng.unpermute(orig, back_vals)
     updates = dict(n=unsorted[0], rw2=unsorted[1], rd3=unsorted[2],
                    kpa=unsorted[3])
     if cfg.chem_switch:

@@ -1,6 +1,6 @@
 """Implicit per-droplet condensation/evaporation with per-cell substepping.
 
-TPU-native equivalent of reference src/impl/condensation/ (percell path):
+JAX equivalent of reference src/impl/condensation/ (percell path):
   - the backward-Euler wet-growth minfun combining Maxwell-Mason, kappa-Koehler
     activity, the Kelvin term, transition-regime beta(Kn) and Sh/Nu ventilation
     (cond_common.ipp:80-338),
@@ -28,6 +28,7 @@ from ..common import constants as c
 from ..common import kappa_koehler, kelvin, maxwell_mason, mean_free_path
 from ..common import theta_dry, transition_regime, ventil
 from ..ops.rootfind import solve_bracketed
+from ..utils.device import on_accelerator
 from . import hskpng
 from .state import State, StaticConfig
 
@@ -39,12 +40,11 @@ ROOT_ITERS = 32      # f64: beyond the reference's 2^-15 toms748 tolerance
 def _root_iters(dtype):
     """The reference's eps_tolerance is sizeof(real_t)*8/4 bits — 16 bits
     (2^-15) at double, only 8 bits (2^-7) at float (config.hpp:181-205).
-    Anderson-Bjoerck converges superlinearly: measured on the bench
-    population (76x76 kinematic step, 370k droplets, 10 substeps), 12
-    iterations sit at the same converged f32 noise floor as 16 (max rel
-    drw2 3.8e-5 vs 2.4e-5 against a 24-iteration reference; the
-    reference's own f32 tolerance is 8e-3) while each iteration costs
-    ~0.44 ms/step in the resident kernel.  The f64 parity path keeps 32.
+    Anderson-Bjoerck converges superlinearly: on the bench population
+    (76x76 kinematic step, 370k droplets, 10 substeps), 12 iterations sit
+    at the same converged f32 noise floor as 16 (max rel drw2 3.8e-5 vs
+    2.4e-5 against a 24-iteration reference; the reference's own f32
+    tolerance is 8e-3).  The f64 parity path keeps 32.
 
     The 3.8e-5 figure is shape-specific (that one population);
     LIBCLOUD_ROOT_ITERS_F32 restores a higher count for atypical
@@ -96,8 +96,7 @@ def _advance_rw2_core(dt, rw2_old, rd3, kpa, vt, rhod, rv, T, p, RH, eta,
     rw2_safe = jnp.where(alive, rw2_old, rd3 ** (2.0 / 3))
 
     drw2 = dt * grow(rw2_safe)
-    from ..common.fastmath import cbrt_pos
-    rd2 = cbrt_pos(rd3) ** 2
+    rd2 = jnp.cbrt(rd3) ** 2
 
     a = jnp.maximum(rd2, rw2_safe + jnp.minimum(0.0, COND_MLT * drw2))
     b = rw2_safe + jnp.maximum(0.0, COND_MLT * drw2)
@@ -121,42 +120,45 @@ def _advance_rw2_core(dt, rw2_old, rd3, kpa, vt, rhod, rv, T, p, RH, eta,
     return jnp.where(alive & (drw2 != 0), rw2_new, rw2_old)
 
 
-def _pallas_wanted(x):
-    """Run the implicit solve as a Pallas kernel?  f32 + on-TPU + population
-    large enough that the VMEM-resident root find beats plain XLA (HBM
-    round-trips per solver iteration otherwise dominate).  LIBCLOUD_PALLAS=
-    0/1 forces either path (note: the env var is read at TRACE time, so it
-    must be set before the first jitted call — flipping it later has no
-    effect on already-compiled programs)."""
-    import os
-    env = os.environ.get("LIBCLOUD_PALLAS", "auto")
-    if env == "0" or x.dtype != jnp.float32:
-        return False
-    if env == "1":
-        # forced on: off-TPU backends degrade to interpret mode (see
-        # advance_rw2) instead of failing to compile
-        return True
-    # the kernel targets Mosaic-TPU memory spaces; any non-TPU backend
-    # (cpu, gpu) auto-selects the plain-XLA path
-    return x.size >= 65536 and jax.default_backend() == "tpu"
+def _kernel_wanted(x):
+    """Run the implicit solve as the Pallas kernel (ops/pallas_cond)?  For
+    the f32 population on an accelerator, where it beats the plain form —
+    rolled or unrolled — end to end on both engines (H100, PERF.md); CPU
+    and the f64 parity path keep the plain XLA form."""
+    return x.dtype == jnp.float32 and on_accelerator()
 
 
 def advance_rw2(dt, rw2_old, rd3, kpa, vt, rhod, rv, T, p, RH, eta,
                 lambda_D, lambda_K, RH_max):
-    """Dispatch the backward-Euler rw^2 advance: Pallas TPU kernel on the
-    hot f32 path (whole root find in VMEM), plain XLA otherwise — identical
-    physics, see _advance_rw2_core."""
-    args = (rw2_old, rd3, kpa, vt, rhod, rv, T, p, RH, eta,
-            lambda_D, lambda_K)
-    if _pallas_wanted(rw2_old) and all(
-            getattr(a, "shape", None) == rw2_old.shape for a in args):
+    """The backward-Euler rw^2 advance with per-SD inputs: the Pallas
+    kernel where _kernel_wanted and every input is a per-SD vector under
+    one scalar dt, plain XLA otherwise — identical physics, see
+    _advance_rw2_core."""
+    cells = (rhod, rv, T, p, RH, eta, lambda_D, lambda_K)
+    if (_kernel_wanted(rw2_old) and rw2_old.ndim == 1 and jnp.ndim(dt) == 0
+            and all(jnp.shape(a) == rw2_old.shape
+                    for a in (rd3, kpa, vt) + cells)):
         from ..ops.pallas_cond import advance_rw2_pallas
-        args = tuple(jnp.asarray(a, rw2_old.dtype) for a in args)
-        return advance_rw2_pallas(
-            _advance_rw2_core, dt, *args, RH_max,
-            interpret=jax.default_backend() != "tpu")
-    return _advance_rw2_core(dt, rw2_old, rd3, kpa, vt, rhod, rv, T, p, RH,
-                             eta, lambda_D, lambda_K, RH_max)
+        return advance_rw2_pallas(_advance_rw2_core, dt, rw2_old, rd3, kpa,
+                                  vt, cells, RH_max, cap=1)
+    return _advance_rw2_core(dt, rw2_old, rd3, kpa, vt, *cells, RH_max)
+
+
+def advance_rw2_rows(dt, rw2_old, rd3, kpa, vt, cells, RH_max):
+    """The rw^2 advance on the dense cell-major layout: (n_cell, cap) SD
+    planes and the eight ambient quantities (rhod, rv, T, p, RH, eta,
+    lambda_D, lambda_K) as (n_cell,) cell vectors.  The kernel gathers the
+    cell values by row; the plain form broadcasts them (XLA fuses the
+    broadcast, nothing is materialised)."""
+    if _kernel_wanted(rw2_old):
+        from ..ops.pallas_cond import advance_rw2_pallas
+        shape = rw2_old.shape
+        out = advance_rw2_pallas(
+            _advance_rw2_core, dt, rw2_old.ravel(), rd3.ravel(), kpa.ravel(),
+            vt.ravel(), tuple(cells), RH_max, cap=shape[1])
+        return out.reshape(shape)
+    return _advance_rw2_core(dt, rw2_old, rd3, kpa, vt,
+                             *(c[:, None] for c in cells), RH_max)
 
 
 def _specific_mom3(cfg: StaticConfig, state: State):
@@ -191,7 +193,7 @@ def cond_percell(cfg: StaticConfig, state: State, dt, RH_max,
     and per-cell latent heating.  ``lam`` is the stale (lambda_D, lambda_K)
     pair from stale_mfp; computed here as a fallback.
 
-    TPU notes: the substep loop carries only the arrays that change (rw2 and
+    Layout notes: the substep loop carries only the arrays that change (rw2 and
     the cell thermodynamics + SGS state) rather than the whole State pytree,
     and the per-cell liquid-water change is one segment-sum of the per-SD
     rw^3 difference instead of two full third moments — the difference form
@@ -238,7 +240,7 @@ def cond_percell(cfg: StaticConfig, state: State, dt, RH_max,
     if not cfg.ice_switch:
         # fast path: run the substep loop in cell-sorted SD order, so the
         # per-cell liquid-water sum is a cumsum + boundary difference instead
-        # of a scatter-add (TPU scatters cost ~8x a sort pass); one sort in,
+        # of a scatter-add; one sort in,
         # one inverse sort out for the single mutated per-SD array (rw2)
         return _cond_percell_sorted(
             cfg, state, dt_sub, sstp, RH_max, turb_cond, var_rho,
@@ -369,21 +371,19 @@ def _cond_percell_sorted(cfg, state, dt_sub, sstp, RH_max, turb_cond,
         th = stt.th + drv * theta_dry.d_th_d_rv(stt.T, stt.th)
         return (rw2_new, th, rv, rhod, ssp)
 
-    # NOTE: measured on TPU — unrolling this loop does not change runtime
-    # (the substep cost is bandwidth/op-count bound, not loop-trip bound)
-    # but inflates compile time ~10x, so it stays rolled
+    # rolled: unrolling the substep loop multiplies compile time
     rw2_s, th, rv, rhod, ssp_s = jax.lax.fori_loop(
         0, sstp, substep, (rw2_s, state.th, state.rv, state.rhod, ssp_s)
     )
 
     # restore original SD order for the mutated per-SD arrays
-    restore = (pos_s, rw2_s) + ((ssp_s,) if turb_cond else ())
-    restored = jax.lax.sort(restore, num_keys=1)
-    updates = dict(rw2=restored[1], th=th, rv=rv)
+    restored = hskpng.unpermute(
+        pos_s, (rw2_s,) + ((ssp_s,) if turb_cond else ()))
+    updates = dict(rw2=restored[0], th=th, rv=rv)
     if var_rho:
         updates["rhod"] = rhod
     if turb_cond:
-        updates["ssp"] = restored[2]
+        updates["ssp"] = restored[1]
     state = dataclasses.replace(state, **updates)
     return hskpng.hskpng_Tpr(cfg, state)
 
@@ -600,13 +600,12 @@ def cond_perparticle_adaptive(cfg: StaticConfig, state: State, dt, RH_max,
     critical radius in this step are overridden to sstp_cond_act substeps
     (:184-195).
 
-    Phase B: every SD runs its own substep count inside one shared
-    fixed-bound loop (masked lanes — on TPU all lanes share one
-    instruction stream, the reference's single-fused-loop rationale
-    :212-214 holds even more strongly here).  Ambient th/rv/rhod/p feed in
-    per-substep increments; drw^3 drives the SD-private rv/theta
-    (nomixing); the per-cell closure comes from the total liquid-content
-    change, as apply_perparticle_cond_change_to_percell_rv_and_th does.
+    Phase B: every SD runs its own substep count inside one shared fixed-bound
+    loop (masked lanes — one instruction stream for every SD, the reference's
+    single-fused-loop rationale :212-214).  Ambient th/rv/rhod/p feed in
+    per-substep increments; drw^3 drives the SD-private rv/theta (nomixing);
+    the per-cell closure comes from the total liquid-content change, as
+    apply_perparticle_cond_change_to_percell_rv_and_th does.
 
     Deviation from the reference: where the adaptation is abandoned
     (activation override / no convergence) we restore the exact saved

@@ -1,6 +1,6 @@
 """Enumerations of the lgrngn public API.
 
-TPU-native equivalents of reference include/libcloudph++/lgrngn/{backend,kernel,
+JAX equivalents of reference include/libcloudph++/lgrngn/{backend,kernel,
 terminal_velocity,advection_scheme,RH_formula,ccn_source}.hpp.
 ``backend_t`` keeps the reference's names for source compatibility; every value
 maps onto the same single JAX/XLA execution path (device placement is JAX's
@@ -16,8 +16,6 @@ class backend_t(enum.Enum):
     OpenMP = 1
     CUDA = 2
     multi_CUDA = 3
-    # the native execution target of this library
-    tpu = 10
 
 
 class kernel_t(enum.Enum):

@@ -1,9 +1,9 @@
 """Housekeeping: cell thermodynamics, mean free paths, segment moments.
 
-TPU-native equivalents of reference src/impl/housekeeping/.  The thrust
+JAX equivalent of reference src/impl/housekeeping/.  The thrust
 sort + reduce_by_key pipeline (hskpng_sort.ipp, hskpng_count.ipp,
 particles_impl_moms.ipp) collapses to `jax.ops.segment_sum` over the per-SD
-cell index — no sorting is needed for moments on TPU, since segment reductions
+cell index — no sorting is needed for moments, since segment reductions
 vectorize directly.
 """
 
@@ -106,3 +106,14 @@ def sd_count_per_cell(cfg: StaticConfig, n_filtered, ijk):
     return jax.ops.segment_sum(
         (n_filtered > 0).astype(n_filtered.dtype), ijk, num_segments=cfg.n_cell
     )
+
+
+def unpermute(perm, vals):
+    """Undo a sort: ``vals`` are per-SD arrays in sorted order and ``perm``
+    the original slot of each sorted position; returns them in slot order.
+
+    A scatter by the permutation, not a second sort keyed on it: XLA's GPU
+    permutation_sort_simplifier rewrites such a sort into a scatter whose
+    types its own HLO verifier then rejects."""
+    return tuple(jnp.zeros_like(v).at[perm].set(v, unique_indices=True)
+                 for v in vals)

@@ -1,6 +1,6 @@
 """Ice phase: singular/time-dependent freezing, melting, depositional growth.
 
-TPU-native equivalents of reference src/impl/ice/particles_impl_ice_nucl_
+JAX equivalent of reference src/impl/ice/particles_impl_ice_nucl_
 melt.ipp and particles_impl_ice_dep.ipp (plus common/ice_nucleation.hpp):
 spheroid ice crystals carry equatorial/polar semi-axes (ice_a, ice_c) and an
 apparent density; a frozen SD has rw2 == 0 and ice_a*ice_c > 0, so the liquid

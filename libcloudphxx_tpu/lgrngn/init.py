@@ -1,6 +1,6 @@
 """Super-droplet initialisation.
 
-TPU-native equivalent of reference src/impl/initialization/ (28 files, SURVEY
+JAX equivalent of reference src/impl/initialization/ (28 files, SURVEY
 section 2.2).  Initialisation happens once, host-side: distribution analysis
 runs in numpy (mirroring init_dist_analysis.ipp), sampling fills the
 fixed-capacity state arrays, and the kappa-Koehler equilibrium wet radius is

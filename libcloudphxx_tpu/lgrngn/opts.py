@@ -1,6 +1,6 @@
 """Construction-time and per-step options of the SDM engine.
 
-TPU-native equivalents of reference include/libcloudph++/lgrngn/opts_init.hpp:28-253
+JAX equivalent of reference include/libcloudph++/lgrngn/opts_init.hpp:28-253
 and opts.hpp:19-50.  Both are mutable attribute containers (tests and host
 models configure them imperatively, reference-style); at trace time
 ``particles_t`` snapshots the fields that shape the compiled program into a

@@ -1,6 +1,6 @@
 """The particles_t API — the Euler-Lagrange coupling surface of the SDM engine.
 
-TPU-native equivalent of reference include/libcloudph++/lgrngn/particles.hpp:16-134
+JAX equivalent of reference include/libcloudph++/lgrngn/particles.hpp:16-134
 (particles_proto_t) and src/particles_{ctor,init,step,diag}.ipp.  The public
 contract is the reference's three-phase stepping (init / step_sync==sync_in+
 step_cond / step_async) with the same strict call-order state machine
@@ -27,13 +27,14 @@ from . import vterm as vterm_mod
 from .enums import backend_t, kernel_t
 from .opts import opts_init_t, opts_t
 from .state import PUDDLE_KEYS, State, StaticConfig, empty_state
+from ..utils.device import on_accelerator
 
 
 def _as_flat(arr, n_cell, name):
     if arr is None:
         return None
     if isinstance(arr, jax.Array):
-        # device-array ABI (the TPU-native arrinfo_t analog,
+        # device-array ABI (the JAX arrinfo_t analog,
         # arrinfo.hpp:10-49): a jax.Array is an immutable device handle, so
         # no defensive copy is needed and no host round trip happens — the
         # caller gets updated values from step_cond's return instead of an
@@ -209,6 +210,8 @@ def _moms_calc_jit(cfg, state, power, n_filtered, attr):
 class particles_t:
     """Reference particles_proto_t equivalent (particles.hpp:16-134)."""
 
+    engine = "flat"     # the SD layout behind step_cond / step_async
+
     def __init__(self, backend: backend_t, opts_init: opts_init_t):
         self.backend = backend
         self.opts_init = opts_init
@@ -279,6 +282,12 @@ class particles_t:
         """Device per-cell array -> host-layout numpy (identity here; the
         multi-device front-end unpads its sharded layout)."""
         return np.asarray(arr)
+
+    def _cell_out(self, arr):
+        """Device per-cell array -> the (n_cell,) device array handed back
+        to device-array callers (identity here; the multi-device front-end
+        unpads its sharded layout)."""
+        return arr
 
     def _segment_max_impl(self, vals):
         mx = jax.ops.segment_max(
@@ -467,7 +476,7 @@ class particles_t:
     def step_cond(self, opts: opts_t, th=None, rv=None, ambient_chem=None):
         """(reference particles_step.ipp:161-336).  Writes the updated th/rv
         back into the passed numpy arrays (sync-out).  Device-array callers
-        (th/rv passed as jax.Array — the TPU arrinfo analog) get the
+        (th/rv passed as jax.Array — the arrinfo analog) get the
         updated fields as a returned (th, rv) pair instead: jax arrays are
         immutable handles, and skipping the host write-back keeps the whole
         step asynchronous (no device round trip per step)."""
@@ -524,7 +533,7 @@ class particles_t:
             _dbg.nancheck_state(self.state, "step_cond")
         self._should_now_run_async = True
         if device_io:
-            return self.state.th, self.state.rv
+            return self._cell_out(self.state.th), self._cell_out(self.state.rv)
 
     def step_sync(self, opts: opts_t, th, rv, rhod=None, courant_x=None,
                   courant_y=None, courant_z=None, ambient_chem=None,
@@ -1025,16 +1034,24 @@ class particles_t:
         return np.asarray(mapping[name])
 
 
+def auto_engine() -> str:
+    """The engine the factory's ``auto`` mode gives a dense-capable
+    configuration: "dense" on an accelerator (on the H100 it runs the
+    canonical bench step in well under half the flat engine's time —
+    PERF.md), "flat" on the host CPU."""
+    return "dense" if on_accelerator() else "flat"
+
+
 def factory(backend: backend_t, opts_init: opts_init_t) -> particles_t:
     """Runtime backend dispatch (reference src/lib.cpp:12-44).  Single-device
     backends map onto one JAX execution path; multi_CUDA (or
     opts_init.dev_count > 1) selects the device-mesh front-end
     (reference lib.cpp:30-38 + multi_gpu_impl.ipp).
 
-    Engine auto-selection: configurations the dense cell-major engine
-    covers (2-D, percell substepping, warm physics — dense._supported) get
-    the fast path on TPU automatically; LIBCLOUD_ENGINE=dense forces it on
-    any backend (used by the CPU conformance tests), =flat disables it."""
+    Engine auto-selection (``auto_engine``): on an accelerator,
+    configurations the dense cell-major engine covers (dense._supported)
+    get the dense engine; LIBCLOUD_ENGINE=dense forces it on any backend
+    (used by the CPU conformance tests), =flat disables it."""
     import os
     dev_count = int(getattr(opts_init, "dev_count", 0))
     if dev_count > 1 or (backend == backend_t.multi_CUDA
@@ -1043,8 +1060,7 @@ def factory(backend: backend_t, opts_init: opts_init_t) -> particles_t:
         return particles_multi_t(backend, opts_init,
                                  n_devices=dev_count or None)
     eng = os.environ.get("LIBCLOUD_ENGINE", "auto")
-    if eng in ("auto", "dense") and (
-            eng == "dense" or jax.default_backend() == "tpu"):
+    if eng == "dense" or (eng == "auto" and auto_engine() == "dense"):
         from .dense_front import dense_capable, particles_dense_t
         probe = particles_dense_t(backend, opts_init)
         if dense_capable(probe.cfg):

@@ -1,6 +1,6 @@
 """Super-droplet recycling: refill dead slots by splitting large SDs.
 
-TPU-native equivalent of reference src/impl/housekeeping/particles_impl_
+JAX equivalent of reference src/impl/housekeeping/particles_impl_
 rcyc.ipp:44-130: one multiplicity argsort pairs the k-th dead slot with the
 k-th largest-multiplicity SD; the donor's attributes are copied into the dead
 slot and the multiplicity is halved between them (dead gets ceil(n/2), donor

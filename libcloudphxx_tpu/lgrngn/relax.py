@@ -1,6 +1,6 @@
 """CCN relaxation: horizontal-mean concentration restoring.
 
-TPU-native equivalent of reference src/impl/sources_and_relaxation_of_SDs/
+JAX equivalent of reference src/impl/sources_and_relaxation_of_SDs/
 particles_impl_rlx_dry_distros.ipp: per (kappa, z-range), compare the
 bin-resolved horizontally-summed CCN count against the expected profile and
 create SDs (rlx_sd_per_bin per deficient level/bin) whose multiplicity fills

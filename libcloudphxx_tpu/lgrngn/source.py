@@ -1,6 +1,6 @@
 """Aerosol sources: creation of new super-droplets during the simulation.
 
-TPU-native equivalent of reference src/impl/sources_and_relaxation_of_SDs/
+JAX equivalent of reference src/impl/sources_and_relaxation_of_SDs/
 (src_dry_distros_simple.ipp, src_dry_distros_matching.ipp, src_dry_sizes.ipp,
 src.ipp).  Source injection happens once every ``supstp_src`` steps, so it
 runs host-side (numpy sampling, like init) and lands in the fixed-capacity

@@ -1,6 +1,6 @@
 """SDM state containers — pytrees of fixed-capacity arrays.
 
-TPU-native redesign of the reference's per-SD/per-cell device vectors
+JAX redesign of the reference's per-SD/per-cell device vectors
 (reference src/impl/particles_impl.ipp:66-146).  Instead of resizable thrust
 vectors with remove_if compaction, state lives in fixed-capacity (n_sd_max,)
 arrays where multiplicity n == 0 marks a dead slot (the reference's
@@ -241,8 +241,9 @@ N_PUDDLE = len(PUDDLE_KEYS) + 2
 
 def empty_state(cfg: StaticConfig, dtype=None) -> State:
     """Allocate an all-dead-slot state for a given static config.
-    Default dtype follows the x64 setting: f64 on CPU parity runs, f32 on
-    TPU (the reference's real_t template parameter, particles.hpp:137)."""
+    Default dtype follows the x64 setting: f64 for parity runs, f32
+    otherwise (the reference's real_t template parameter,
+    particles.hpp:137)."""
     if dtype is None:
         dtype = jnp.result_type(float)
     n_sd = cfg.n_sd_max

@@ -1,6 +1,6 @@
 """Super-droplet transport: advection, sedimentation, subsidence, walls.
 
-TPU-native equivalents of reference src/impl/advection/particles_impl_adve.ipp
+JAX equivalent of reference src/impl/advection/particles_impl_adve.ipp
 (implicit / explicit-Euler / predictor-corrector courant-interpolated schemes),
 src/impl/sedimentation/particles_impl_sedi.ipp, src/impl/subsidence/
 particles_impl_subs.ipp and src/impl/boundary_conditions/particles_impl_

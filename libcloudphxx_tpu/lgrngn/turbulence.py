@@ -1,6 +1,6 @@
 """SGS turbulence (Grabowski & Abade 2017) for the SD population.
 
-TPU-native equivalents of reference src/impl/housekeeping/particles_impl_
+JAX equivalent of reference src/impl/housekeeping/particles_impl_
 hskpng_{tke,turb_vel,turb_ss}.ipp and src/impl/advection/particles_impl_
 turb_adve.ipp: per-cell TKE from the dissipation-rate field, an
 Ornstein-Uhlenbeck update of per-SD velocity perturbations (up/vp/wp), a

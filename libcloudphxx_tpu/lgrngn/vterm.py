@@ -1,10 +1,8 @@
 """Terminal-velocity housekeeping for the SD population.
 
-TPU-native equivalent of reference src/impl/housekeeping/particles_impl_
-hskpng_vterm.ipp.  The reference's beard77fast 10k-bin vt0 cache
-(get_vt0_bin:17-35) was a serial-CPU/GPU optimisation; on TPU the polynomial
-itself evaluates in a fused VPU pass, so 'fast' and plain beard77 share the
-direct formula (same physics, no quantisation error).
+JAX equivalent of reference src/impl/housekeeping/particles_impl_
+hskpng_vterm.ipp, including the beard77fast 10k-bin vt0 cache
+(get_vt0_bin:17-35).
 """
 
 import numpy as np
@@ -16,7 +14,7 @@ from .enums import vt_t
 from .state import StaticConfig
 
 # beard77fast sea-level vt cache (reference src/detail/config.hpp:207-210 +
-# init_vterm.ipp): 10k bins in ln(r); on TPU the gather replaces ~20
+# init_vterm.ipp): 10k bins in ln(r); the gather replaces ~20
 # transcendental ops per SD per refresh
 VT0_BINS = 10000
 VT0_LN_R_MIN = float(np.log(0.5e-6))

@@ -1,6 +1,6 @@
 """Host models — acceptance vehicles for the three microphysics schemes.
 
-TPU-native equivalent of reference models/ (the 2-D kinematic "icicle"
+JAX equivalent of reference models/ (the 2-D kinematic "icicle"
 driver, models/kinematic_2D/).
 """
 

@@ -1,6 +1,6 @@
 """icicle-tpu — the host-model command line driver.
 
-TPU-native equivalent of the reference's icicle CLI
+JAX equivalent of the reference's icicle CLI
 (models/kinematic_2D/src/icicle.cpp:90-235 + opts_common.hpp:41-104): runs
 the ICMW8-case-1 kinematic model with any of the three microphysics schemes
 and records per-outfreq field snapshots plus the out_dry/out_wet
@@ -106,7 +106,7 @@ def record_lgrngn_moments(model, out_dry, out_wet):
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="icicle-tpu",
-        description="2-D kinematic cloud model (ICMW8 case 1), TPU-native")
+        description="2-D kinematic cloud model (ICMW8 case 1)")
     ap.add_argument("--micro", required=True,
                     choices=["blk_1m", "blk_2m", "lgrngn", "lgrngn_chem"])
     ap.add_argument("--nx", type=int, default=76)

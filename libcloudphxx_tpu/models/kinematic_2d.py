@@ -1,6 +1,6 @@
 """The 2-D prescribed-flow kinematic cloud model ("icicle").
 
-TPU-native equivalent of reference models/kinematic_2D/: the GMD-2015 /
+JAX equivalent of reference models/kinematic_2D/: the GMD-2015 /
 8th ICMW case-1 setup (models/kinematic_2D/src/opts_common.hpp:48-66,
 cases/icmw8_case1.hpp:84-219) driving any of the three microphysics schemes.
 The Eulerian advection of th/rv is the from-scratch JAX MPDATA in
@@ -300,7 +300,7 @@ class Kinematic2D:
                 }
                 ambient_chem = self.chem_gases
             self.prtcls = lgrngn_mod.factory(
-                backend or lgrngn_mod.backend_t.tpu, oi
+                backend or lgrngn_mod.backend_t.CUDA, oi
             )
             self.prtcls.init(self.th, self.rv, self.rhod,
                              Cx=self.C_x, Cz=self.C_z,
@@ -542,13 +542,7 @@ class Kinematic2D:
         (lgrngn/dense.py) — same pipeline as _lgrngn_step_fn with the SD
         population held as a (n_cell, cap) occupancy matrix, so per-cell
         reductions are row reductions and the coalescence shuffle is a
-        cap-wide batched sort.
-
-        When the Pallas coalescence kernel is enabled
-        (LIBCLOUD_PALLAS_COAL=1) the step splits into two jitted halves
-        around the standalone kernel dispatch: embedding the pallas_call
-        inside the fused program makes XLA schedule ~300 ms of layout
-        copies around it, while three chained dispatches cost ~2 ms."""
+        cap-wide batched sort."""
         from ..lgrngn import dense as dense_mod
         p = self.prtcls
         cfg = p.cfg
@@ -563,140 +557,44 @@ class Kinematic2D:
         n_iters, fct = self.mpdata_iters, self.fct
         nx, nz = self.nx, self.nz
 
-        import os
-        split_coal = (do_coal
-                      and os.environ.get("LIBCLOUD_PALLAS_COAL", "0") == "1")
-        # "embed" keeps the kernel inside the fused program (relies on the
-        # pallas_call input/output aliasing to avoid the layout copies)
-
-        # kernel-resident step: cond+coal+transport as ONE pallas_call
-        # (ops/pallas_step) with only MPDATA and the re-binning in XLA.
-        # The eligibility check runs INSIDE the step function so it is
-        # re-evaluated per traced shape: the row capacity changes between
-        # runs (re-packs of an evolved population) and the kernel's bitonic
-        # network silently mis-sorts at non-power-of-two widths (the
-        # round-4 rep-1 overflow bug).
-        # LIBCLOUD_MPDATA_FUSE=1 rides the next step's MPDATA as a
-        # grid-step-0 epilogue of the x-merge kernel (rebin_x) — measured
-        # NEUTRAL (11.33 vs 11.16 ms/step, PERF_r05): XLA already
-        # pipelines the standalone advect2 dispatch behind the host loop,
-        # so there is no idle to reclaim.  Kept for A/B.
-        fuse_mp = os.environ.get("LIBCLOUD_MPDATA_FUSE", "0") == "1"
-
-        def resident_f(carry):
-            # 5-carry: (state, th, rv, th_adv, rv_adv); in fused mode the
-            # advected pair came from the PREVIOUS step's x-merge kernel,
-            # otherwise it is computed here and the trailing slots ride
-            # along unread (the carry structure must stay fixed for the
-            # scan variant)
-            d, th, rv, tha, rva = carry
-            if fuse_mp:
-                d, thc, rvc, tha2, rva2 = dense_mod.step_fused(
-                    cfg, d, tha.reshape(-1), rva.reshape(-1), params, dt,
-                    RH_max, int(oi.sstp_coal), do_coal, do_sedi,
-                    mp=(gc_x, gc_z, G, n_iters, fct))
-            else:
-                tha2, rva2 = mpdata.advect2(th, rv, gc_x, gc_z, G,
-                                            n_iters=n_iters, fct=fct)
-                d, thc, rvc = dense_mod.step_fused(
-                    cfg, d, tha2.reshape(-1), rva2.reshape(-1), params,
-                    dt, RH_max, int(oi.sstp_coal), do_coal, do_sedi)
-            return (d, thc.reshape(nx, nz), rvc.reshape(nx, nz),
-                    tha2, rva2)
-
-        if not split_coal:
-            def f(carry):
-                d = carry[0]
-                if dense_mod.resident_ok(cfg, d):  # static per trace
-                    return resident_f(carry)
-                d, th, rv = carry[:3]
-                th, rv = mpdata.advect2(th, rv, gc_x, gc_z, G,
-                                        n_iters=n_iters, fct=fct)
-                d, thc, rvc = dense_mod.step_cond(
-                    cfg, d, th.reshape(-1), rv.reshape(-1), dt, RH_max)
-                d = dense_mod.step_async(cfg, d, params, dt,
-                                         int(oi.sstp_coal), do_coal,
-                                         do_sedi)
-                # tha/rva pass through unread (carry structure must stay
-                # fixed for the scan variant); the runner prologue
-                # recomputes them per chunk
-                return (d, thc.reshape(nx, nz), rvc.reshape(nx, nz)
-                        ) + tuple(carry[3:])
-
-            def prologue(carry):
-                d, th, rv = carry[:3]
-                tha, rva = mpdata.advect2(th, rv, gc_x, gc_z, G,
-                                          n_iters=n_iters, fct=fct)
-                return (d, th, rv, tha, rva)
-            f.prologue = prologue
-            return f
-
-        @jax.jit
-        def part1(carry):
+        def f(carry):
             d, th, rv = carry
-            th = mpdata.advect(th, gc_x, gc_z, G, n_iters=n_iters, fct=fct)
-            rv = mpdata.advect(rv, gc_x, gc_z, G, n_iters=n_iters, fct=fct)
+            th, rv = mpdata.advect2(th, rv, gc_x, gc_z, G,
+                                    n_iters=n_iters, fct=fct)
             d, thc, rvc = dense_mod.step_cond(
                 cfg, d, th.reshape(-1), rv.reshape(-1), dt, RH_max)
-            return d, thc, rvc
-
-        @jax.jit
-        def part2(d):
-            # transport after coalescence (step_async minus coal)
-            d = dense_mod.adve_sedi_bcnd(cfg, d, dt, do_sedi)
-            return dense_mod.rebin(cfg, d)
-
-        def f(carry):
-            d, thc, rvc = part1(carry)
-            d = dense_mod.coal(cfg, d, params, dt, int(oi.sstp_coal))
-            d = part2(d)
+            d = dense_mod.step_async(cfg, d, params, dt, int(oi.sstp_coal),
+                                     do_coal, do_sedi)
             return (d, thc.reshape(nx, nz), rvc.reshape(nx, nz))
-        f._nojit = True
         return f
 
     def _lgrngn_runner(self, sp: bool, n: int, engine: str = "flat"):
-        """n fused steps as a chained python loop over ONE jitted step.
-
-        Measured on the TPU (tools/profile_dense3.py): wrapping the step in
-        a lax.scan makes the dense engine ~11x SLOWER (2402 vs 219 ms/step —
-        the XLA while loop pessimises the sort/gather pipeline), while the
-        host-chained loop costs only the ~per-step dispatch.  Chaining also
-        compiles the step once instead of once per (spinup, n) scan length.
-        LIBCLOUD_SCAN=1 restores the scan for A/B."""
+        """n fused steps: a lax.scan over the step for the flat engine, a
+        host-chained python loop over ONE jitted step for the dense engine
+        (which then compiles the step once instead of once per (spinup, n)
+        scan length).  LIBCLOUD_SCAN=0/1 overrides the choice for A/B."""
         import os
         cache = getattr(self, "_lgrngn_runners", None)
         if cache is None:
             cache = self._lgrngn_runners = {}
-        # measured (PERF_r03.md): scan helps the flat engine (320 vs 423
-        # ms/step) but pessimises the dense one ~11x; default accordingly
         default_scan = "1" if engine == "flat" else "0"
         use_scan = os.environ.get("LIBCLOUD_SCAN", default_scan) == "1"
+        step_fn = (self._lgrngn_step_fn_dense if engine == "dense"
+                   else self._lgrngn_step_fn)
         if use_scan:
             key = (sp, n, engine, True)
             if key not in cache:
-                f = (self._lgrngn_step_fn_dense(sp) if engine == "dense"
-                     else self._lgrngn_step_fn(sp))
-                pro = getattr(f, "prologue", lambda c: c)
+                f = step_fn(sp)
                 cache[key] = jax.jit(lambda c: jax.lax.scan(
-                    lambda carry, _: (f(carry), None), pro(c), None,
+                    lambda carry, _: (f(carry), None), c, None,
                     length=n)[0])
             return cache[key]
         key = (sp, engine)
         if key not in cache:
-            f = (self._lgrngn_step_fn_dense(sp) if engine == "dense"
-                 else self._lgrngn_step_fn(sp))
-            # a step composed of pre-jitted pieces around a standalone
-            # Pallas dispatch must not be re-wrapped
-            fj = f if getattr(f, "_nojit", False) else jax.jit(f)
-            pro = getattr(f, "prologue", None)
-            cache[key] = (fj, jax.jit(pro) if pro else None)
-        fj, pro_j = cache[key]
+            cache[key] = jax.jit(step_fn(sp))
+        fj = cache[key]
 
         def run(c):
-            # prologue widens the carry with the advected fields once per
-            # chunk (the fused loop then carries them step to step)
-            if pro_j is not None:
-                c = pro_j(c)
             for _ in range(n):
                 c = fj(c)
             return c
@@ -704,19 +602,13 @@ class Kinematic2D:
 
     def dense_capacity(self):
         """Row capacity for the dense engine: 2x the densest initial cell,
-        rounded up to a multiple of 8 lanes — or to the next power of two
-        when the kernel-resident step is enabled (its in-row bitonic
-        network only sorts power-of-two widths)."""
-        import os
+        rounded up to a multiple of 8 lanes (dense.row_capacity)."""
+        from ..lgrngn import dense as dense_mod
         p = self.prtcls
         counts = np.bincount(
             np.asarray(p.state.ijk)[np.asarray(p.state.n) > 0],
             minlength=p.cfg.n_cell)
-        cap = max(8, int(-(-2 * int(counts.max()) // 8) * 8))
-        if os.environ.get("LIBCLOUD_RESIDENT", "auto") != "0" \
-                and jax.default_backend() == "tpu":
-            cap = 1 << (cap - 1).bit_length()
-        return cap
+        return dense_mod.row_capacity(counts.max())
 
     def run_device_lgrngn(self, nt, spinup=0, engine="flat",
                           repack_every=0, repack_margin=1.25,
@@ -725,61 +617,35 @@ class Kinematic2D:
         sees th/rv only at the end.  engine="dense" runs the cell-major
         occupancy-matrix backend (lgrngn/dense.py).
 
-        ``repack_every`` > 0 enables the occupancy-aware repack policy for
-        long dense runs: every that many steps the max row occupancy is
-        read (one host sync) and the population redistributes to the
-        smallest admissible capacity >= repack_margin * occupancy —
-        growing BEFORE rows overflow as rain concentrates SDs, and
-        shrinking back (with 1.5x hysteresis so a hovering occupancy does
-        not oscillate the capacity) so per-lane costs track the real
-        population instead of the historical peak (the r4 bench protocol
-        sidestepped this by re-packing the from-init state; sustained runs
-        cannot).  ``chunk_log``: optional list; each repack-interval chunk
-        appends {steps, occ, cap, seconds} host-side (tools/
-        bench_sustained.py uses it to separate steady-state chunk times
-        from compile-contaminated ones)."""
+        ``repack_every`` > 0 enables the occupancy-aware repack policy for long
+        dense runs: every that many steps the max row occupancy is read (one
+        host sync) and the population redistributes to the smallest admissible
+        capacity >= repack_margin * occupancy — growing BEFORE rows overflow as
+        rain concentrates SDs, and shrinking back (with 1.5x hysteresis so a
+        hovering occupancy does not oscillate the capacity) so per-lane costs
+        track the real population instead of the historical peak.
+        ``chunk_log``: optional list; each repack-interval chunk appends
+        {steps, occ, cap, seconds} host-side (tools/ bench_sustained.py uses it
+        to separate steady-state chunk times from compile-contaminated ones)."""
         if self.relax_th_rv:
             raise NotImplementedError(
                 "relax_th_rv is only supported in the stepwise run() path")
         p = self.prtcls
         if engine == "dense":
-            import dataclasses as _dc
-            import os as _os
             from ..lgrngn import dense as dense_mod
             cap = self.dense_capacity()
             flat_state = p.state
             d = jax.jit(
                 dense_mod.pack, static_argnums=(0, 2)
             )(p.cfg, flat_state, cap)
-            # deferred-x pipeline: when the resident kernel + in-kernel
-            # re-binning will run, carry the x classification in the state
-            # so each step is ONE kernel (the x merge becomes the next
-            # step's prologue); flushed after the loop
-            # OFF by default: measured 17.5 vs 15.4 ms/step at bench
-            # shape — the 21 windowed SD inputs per block (3 index maps x
-            # 7 arrays, no aliasing possible) degrade the kernel's DMA
-            # pipelining by more than the saved rebin_x dispatch
-            if (_os.environ.get("LIBCLOUD_DEFER_X", "0") == "1"
-                    and dense_mod.resident_ok(p.cfg, d)
-                    and _os.environ.get("LIBCLOUD_REBIN_KERNEL", "1") == "1"
-                    and dense_mod.rebin_block_rows(p.cfg) > 0):
-                d = _dc.replace(d, xkey=jnp.where(
-                    d.n > 0, jnp.float32(2.0), jnp.float32(3.0)))
             carry = (d, jnp.asarray(self.th), jnp.asarray(self.rv))
         else:
             carry = (p.state, jnp.asarray(self.th), jnp.asarray(self.rv))
 
         def admissible_cap(occ):
-            """Smallest capacity the engine accepts for this occupancy:
-            margin applied, 8-lane aligned, power of two when the resident
-            kernel will run (its bitonic network needs it)."""
-            want = max(8, int(-(-int(occ * repack_margin) // 8) * 8))
-            if engine == "dense" \
-                    and dense_mod.resident_static_ok(p.cfg) \
-                    and _os.environ.get("LIBCLOUD_RESIDENT", "auto") != "0" \
-                    and jax.default_backend() == "tpu":
-                want = 1 << (want - 1).bit_length()
-            return want
+            """Smallest capacity for this occupancy: margin applied,
+            8-lane aligned."""
+            return max(8, int(-(-int(occ * repack_margin) // 8) * 8))
 
         repack_jit = None
         if engine == "dense" and repack_every:
@@ -830,8 +696,7 @@ class Kinematic2D:
                     # drifts ~5-10 per repack interval at the GMD rain
                     # peak, and a 1.25x trigger would double every
                     # lane-wise cost for the tail of the run at occ just
-                    # past cap/1.25 (SUSTAINED r5: occ 105 of cap 128
-                    # forced 200 steps at cap 256, 2.3x slower); shrink
+                    # past cap/1.25; shrink
                     # only past 1.5x hysteresis so occupancies hovering
                     # at a capacity boundary do not oscillate (each
                     # retarget costs a repack sort + maybe a compile)
@@ -844,15 +709,8 @@ class Kinematic2D:
                             spinup=sp, steps=k, occ=occ,
                             cap=int(carry[0].cap),
                             seconds=_time.perf_counter() - t_chunk))
-        # the dense resident path carries (state, th, rv, th_adv, rv_adv);
-        # the advected pair is a pure function of (th, rv) and is simply
-        # recomputed by the next chunk's prologue
-        state, th, rv = carry[:3]
+        state, th, rv = carry
         if engine == "dense":
-            if state.xkey.size:
-                state = jax.jit(
-                    dense_mod.flush_xmerge, static_argnums=0
-                )(p.cfg, state)
             dropped = float(state.overflow)
             if dropped:
                 # loud failure, like the flat engine's capacity error
@@ -931,8 +789,8 @@ class Kinematic2D:
 
     def run_device(self, nt, spinup=0):
         """Device-resident bulk run: one lax.scan per spinup phase, no host
-        transfers between steps (the TPU-native answer to the reference's
-        9000-step fig_a regressions)."""
+        transfers between steps (the device-resident answer to the
+        reference's 9000-step fig_a regressions)."""
         if self.relax_th_rv:
             raise NotImplementedError(
                 "relax_th_rv is only supported in the stepwise run() path")

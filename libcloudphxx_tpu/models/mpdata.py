@@ -1,4 +1,4 @@
-"""MPDATA advection on a 2-D (x, z) cell-centred grid — TPU-native.
+"""MPDATA advection on a 2-D (x, z) cell-centred grid.
 
 The reference host model uses libmpdata++ (an external C++ library) for the
 Eulerian advection of th/rv (reference models/kinematic_2D/src/icicle.cpp).
@@ -104,9 +104,8 @@ def _antidiff_gc(psi, gc_x, gc_z, G):
         - gc_z * gcx_at_z / Gz * B_z
     import os
     if os.environ.get("LIBCLOUD_MPDATA_WALL", "zero") == "zero":
-        # no antidiffusive flux through top/bottom (mask instead of
-        # .at[].set — the latter lowers to an unsupported scatter in
-        # Pallas); LIBCLOUD_MPDATA_WALL=open keeps the wall-face
+        # no antidiffusive flux through top/bottom (a mask, not an
+        # .at[].set scatter); LIBCLOUD_MPDATA_WALL=open keeps the wall-face
         # antidiffusive flux (libmpdata++ bcond::open behaviour A/B)
         col = jax.lax.broadcasted_iota(jnp.int32, gc_z2.shape, 1)
         gc_z2 = jnp.where((col == 0) | (col == gc_z2.shape[1] - 1), 0.0,
@@ -189,83 +188,23 @@ def _advect_body(psi, gc_x, gc_z, G, n_iters, fct):
     return psi
 
 
-def _pallas_ok(psi):
-    """The whole MPDATA step fits one Pallas program when the grid is small
-    enough to sit in VMEM (the canonical 76x76 case uses ~100 KB); the
-    f64/CPU parity path keeps plain XLA.  LIBCLOUD_MPDATA_XLA=1 forces the
-    plain-XLA path for A/B without touching the condensation kernel."""
-    import os
-    if os.environ.get("LIBCLOUD_PALLAS", "auto") == "0":
-        return False
-    if os.environ.get("LIBCLOUD_MPDATA_XLA", "0") == "1":
-        return False
-    return (psi.dtype == jnp.float32 and psi.size <= 512 * 512
-            and jax.default_backend() == "tpu")
-
-
 @partial(jax.jit, static_argnames=("n_iters", "fct"))
 def advect(psi, gc_x, gc_z, G, n_iters=2, fct=False):
     """MPDATA advection of a positive-definite scalar; n_iters=1 is plain
     upwind, 2 adds one antidiffusive correction (libmpdata++ default).
     fct=True applies the non-oscillatory limiter to the corrective
     iterations (libmpdata++ opts::fct, the reference icicle configuration —
-    models/kinematic_2D/src/icicle.cpp:85).
-
-    On TPU/f32 the whole step runs as ONE Pallas kernel (the grid fits in
-    VMEM, and at ~20 shifted elementwise ops the XLA path is bound by the
-    per-kernel dispatch floor, not arithmetic); the kernel body is the SAME
-    jnp code, so the two paths cannot drift."""
+    models/kinematic_2D/src/icicle.cpp:85)."""
     G = jnp.broadcast_to(jnp.asarray(G, psi.dtype), psi.shape)
-    if _pallas_ok(psi):
-        from jax.experimental import pallas as pl
-        try:
-            from jax.experimental.pallas import tpu as pltpu
-        except ImportError:  # pragma: no cover
-            return _advect_body(psi, gc_x, gc_z, G, n_iters, fct)
-
-        def kernel(psi_ref, gcx_ref, gcz_ref, G_ref, out_ref):
-            out_ref[:] = _advect_body(
-                psi_ref[:], gcx_ref[:], gcz_ref[:], G_ref[:], n_iters, fct)
-
-        spec = pl.BlockSpec(memory_space=pltpu.VMEM)
-        return pl.pallas_call(
-            kernel,
-            out_shape=jax.ShapeDtypeStruct(psi.shape, psi.dtype),
-            in_specs=[spec] * 4,
-            out_specs=spec,
-        )(psi, jnp.asarray(gc_x, psi.dtype), jnp.asarray(gc_z, psi.dtype),
-          G)
     return _advect_body(psi, gc_x, gc_z, G, n_iters, fct)
 
 
 @partial(jax.jit, static_argnames=("n_iters", "fct"))
 def advect2(psi_a, psi_b, gc_x, gc_z, G, n_iters=2, fct=False):
-    """Advect TWO scalars sharing the same courants in one dispatch (th and
-    rv of the kinematic step) — same math as two advect() calls, but the
-    TPU pays the per-kernel floor once.  Jitted at top level: host-loop
-    callers (the public-API driver) must not pay a re-trace per step."""
+    """Advect TWO scalars sharing the same courants in one jitted program
+    (th and rv of the kinematic step) — same math as two advect() calls.
+    Jitted at top level: host-loop callers (the public-API driver) must
+    not pay a re-trace per step."""
     G = jnp.broadcast_to(jnp.asarray(G, psi_a.dtype), psi_a.shape)
-    if _pallas_ok(psi_a) and psi_b.dtype == psi_a.dtype:
-        from jax.experimental import pallas as pl
-        try:
-            from jax.experimental.pallas import tpu as pltpu
-        except ImportError:  # pragma: no cover
-            return (_advect_body(psi_a, gc_x, gc_z, G, n_iters, fct),
-                    _advect_body(psi_b, gc_x, gc_z, G, n_iters, fct))
-
-        def kernel(a_ref, b_ref, gcx_ref, gcz_ref, G_ref, oa_ref, ob_ref):
-            gcx, gcz, Gv = gcx_ref[:], gcz_ref[:], G_ref[:]
-            oa_ref[:] = _advect_body(a_ref[:], gcx, gcz, Gv, n_iters, fct)
-            ob_ref[:] = _advect_body(b_ref[:], gcx, gcz, Gv, n_iters, fct)
-
-        spec = pl.BlockSpec(memory_space=pltpu.VMEM)
-        return pl.pallas_call(
-            kernel,
-            out_shape=(jax.ShapeDtypeStruct(psi_a.shape, psi_a.dtype),
-                       jax.ShapeDtypeStruct(psi_b.shape, psi_b.dtype)),
-            in_specs=[spec] * 5,
-            out_specs=(spec, spec),
-        )(psi_a, psi_b, jnp.asarray(gc_x, psi_a.dtype),
-          jnp.asarray(gc_z, psi_a.dtype), G)
     return (_advect_body(psi_a, gc_x, gc_z, G, n_iters, fct),
             _advect_body(psi_b, gc_x, gc_z, G, n_iters, fct))

@@ -1,4 +1,5 @@
-"""Reusable TPU-friendly numerical ops (batched root finds, segment ops)."""
+"""Reusable batched numerical ops: the bracketed root finds and the
+condensation kernel (pallas_cond)."""
 
 from . import rootfind
 

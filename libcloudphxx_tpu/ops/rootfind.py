@@ -1,12 +1,13 @@
-"""Batched bracketed root finding for TPU.
+"""Batched bracketed root finding.
 
 The reference relies on a per-element TOMS-748 solver
 (reference: include/libcloudph++/common/detail/toms748.hpp) called from
-per-droplet device loops.  On TPU we instead solve the whole batch at once
+per-droplet device loops.  Here the whole batch is solved at once
 with a fixed-iteration, divergence-free bracketing scheme: an
 Anderson-Bjoerck-accelerated regula falsi with a bisection safeguard.  All
-lanes run the same instruction stream (no data-dependent trip counts), which
-maps cleanly onto the VPU; converged lanes simply keep a collapsed bracket.
+lanes run the same instruction stream (no data-dependent trip counts), so
+the solve vectorises over the population; converged lanes simply keep a
+collapsed bracket.
 
 Convergence is superlinear (~order 1.7), so 32 iterations exceed f64
 precision for any sane bracket; the reference caps TOMS-748 at 100
@@ -19,7 +20,7 @@ import jax
 import jax.numpy as jnp
 
 
-def solve_bracketed(f, a, b, *, iters=32):
+def solve_bracketed(f, a, b, *, iters=32, unroll=False):
     """Find roots of ``f`` within brackets ``[a, b]`` elementwise.
 
     ``f`` must be a vectorized callable; ``a``/``b`` arrays of equal shape.
@@ -28,6 +29,7 @@ def solve_bracketed(f, a, b, *, iters=32):
     that need an explicit-Euler fallback (condensation) must detect the
     missing sign change themselves, as the reference does
     (src/impl/condensation/common/particles_impl_cond_common.ipp:294-315).
+    ``unroll`` is passed to the iteration's ``fori_loop``.
     """
     fa = f(a)
     fb = f(b)
@@ -58,7 +60,8 @@ def solve_bracketed(f, a, b, *, iters=32):
         nb = jnp.where(fx == 0, x, nb)
         return na, nb, nfa, nfb
 
-    a, b, fa, fb = jax.lax.fori_loop(0, iters, body, (a, b, fa, fb))
+    a, b, fa, fb = jax.lax.fori_loop(0, iters, body, (a, b, fa, fb),
+                                     unroll=unroll)
     # return the endpoint with the smaller residual
     return jnp.where(jnp.abs(fa) < jnp.abs(fb), a, b)
 

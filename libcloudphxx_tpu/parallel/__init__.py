@@ -1,6 +1,6 @@
 """parallel — multi-chip domain decomposition over jax.sharding meshes.
 
-TPU-native equivalent of the reference's MPI / multi-GPU distributed-memory
+JAX equivalent of the reference's MPI / multi-GPU distributed-memory
 layer (SURVEY section 2.3): 1-D x-slab decomposition (uneven slabs padded to
 the widest, reference distmem_opts.hpp) with ring (ppermute) courant halos
 and super-droplet migration, plus the multi-device particles_t front-end

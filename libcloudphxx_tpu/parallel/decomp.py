@@ -1,6 +1,6 @@
 """Multi-chip domain decomposition of the SDM engine.
 
-TPU-native equivalent of the reference's distributed-memory layer
+JAX equivalent of the reference's distributed-memory layer
 (SURVEY section 2.3): the 1-D x-slab MPI/multi-GPU decomposition
 (src/impl/distributed_memory/particles_impl_mpi_exchange.ipp,
 src/impl_multi_gpu/) becomes a single `shard_map` program over a

@@ -156,9 +156,9 @@ def dense_specs():
         sstp_tmp_th=P("x"), sstp_tmp_rv=P("x"),
         courant_x=P("x"), courant_y=P(), courant_z=P("x"),
         key=P("x"), puddle=P("x"), overflow=P("x"),
-        # deferred-x / exact-substepping planes: resident-TPU / serial
-        # features, empty on the mesh (guarded in dense_step_sharded)
-        xkey=P(), sd_th=P(), sd_rv=P(), sd_rh=P(), sd_p=P())
+        # exact-substepping planes: a serial-engine feature, empty on the
+        # mesh (guarded in dense_step_sharded)
+        sd_th=P(), sd_rv=P(), sd_rh=P(), sd_p=P())
 
 
 def scatter_dense(cfg: StaticConfig, d: DenseState, n_shards: int,
@@ -308,24 +308,15 @@ def dense_step_sharded(cfg_l: StaticConfig, sstp_coal: int, buf: int,
             "(flat particles_multi_t covers it)")
 
     def step(d: DenseState, th, rv, dom: ShardDomain, params, dt):
-        if dense.resident_ok(cfg_l, d):
-            # the fast path shares the resident kernel with the serial
-            # engine: cond + coal + transport as ONE pallas_call per
-            # shard (x unwrapped, no in-kernel re-binning — the
-            # distributed re-binning below owns cross-row movement)
-            d, thc, rvc = dense.step_fused_shard(
-                cfg_l, d, th, rv, params, dt, RH_max, sstp_coal,
-                do_coal, do_sedi)
-        else:
-            d, thc, rvc = dense.step_cond(cfg_l, d, th, rv, dt, RH_max)
-            row = lambda a: a[:, None]
-            from ..lgrngn import vterm as vterm_mod
-            vt = vterm_mod.vt_of(cfg_l, d.rw2, row(d.T), row(d.p),
-                                 row(d.rhod), row(d.eta))
-            d = dataclasses.replace(d, vt=vt)
-            if do_coal:
-                d = dense.coal(cfg_l, d, params, dt, sstp_coal)
-            d = dense.adve_sedi_bcnd(cfg_l, d, dt, do_sedi, x_wrap=False)
+        d, thc, rvc = dense.step_cond(cfg_l, d, th, rv, dt, RH_max)
+        row = lambda a: a[:, None]
+        from ..lgrngn import vterm as vterm_mod
+        vt = vterm_mod.vt_of(cfg_l, d.rw2, row(d.T), row(d.p),
+                             row(d.rhod), row(d.eta))
+        d = dataclasses.replace(d, vt=vt)
+        if do_coal:
+            d = dense.coal(cfg_l, d, params, dt, sstp_coal)
+        d = dense.adve_sedi_bcnd(cfg_l, d, dt, do_sedi, x_wrap=False)
         d = rebin_sharded(cfg_l, d, dom, buf, axis_name)
         return d, thc, rvc
 

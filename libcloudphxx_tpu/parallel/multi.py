@@ -1,6 +1,6 @@
 """particles_multi_t — the multi-device SDM front-end.
 
-TPU-native equivalent of the reference's multi_CUDA backend
+JAX equivalent of the reference's multi_CUDA backend
 (src/impl_multi_gpu/particles_multi_gpu_impl.ipp:35-227 + the diag
 reductions in particles_multi_gpu_diag.ipp): one particles_proto_t that
 fans the domain out over a `jax.sharding.Mesh` x axis.  Where the reference
@@ -644,6 +644,9 @@ class particles_multi_t(particles_t):
     # ---------------------------------------------------------- diag output
     def _cell_to_host(self, arr):
         return self._unpad_cell(arr)
+
+    def _cell_out(self, arr):
+        return jnp.asarray(self._unpad_cell(arr))
 
     def _set_outbuf(self, per_cell):
         self._outbuf = self._unpad_cell(per_cell)

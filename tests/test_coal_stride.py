@@ -1,5 +1,6 @@
-"""XOR-stride pairing for the resident kernel's coalescence loop
-(dense.pair_and_collide_stride / pair_and_collide_partners).
+"""XOR-stride coalescence pairing (dense.pair_and_collide_stride /
+pair_and_collide_partners), a candidate replacement for the per-substep
+shuffle sort.
 
 Three gates:
   1. EXACT: on alive-first-compacted rows, stride-1 pairing IS the
@@ -7,7 +8,7 @@ Three gates:
      bitwise (same draws, same scale: floor(k/2) pairs both ways).
   2. CONSERVATION: any stride conserves the 3rd wet moment, dry volume
      and kappa*rd3, and never increases SD count / total multiplicity.
-  3. STATISTICS: a box Golovin run with the kernel's exact schedule (one
+  3. STATISTICS: a box Golovin run with a stride schedule (one
      random shuffle per stride cycle, strides 2^0..2^5 in between)
      reproduces the Scott-1967 analytic spectrum at the same RMSD gate
      as the reference-faithful per-substep shuffle (reference oracle:
@@ -153,7 +154,7 @@ def _mass_dens(n, rw2, rad, sig0=0.62):
 
 @pytest.mark.slow
 def test_golovin_spectrum_stride_schedule():
-    """The kernel's exact substep schedule, run as XLA on CPU."""
+    """One shuffle per stride cycle, strides cycled in between."""
     cfg = _cfg()
     params = jnp.asarray([B_GOLOVIN])
     rng = np.random.default_rng(7)
@@ -220,7 +221,6 @@ def test_golovin_spectrum_stride_schedule():
         for i in range(BINS.size - 1)])
     mask = (spec > 0) | (ana > 0)
     err = np.sqrt(np.mean((spec[mask] - ana[mask]) ** 2))
-    # same gate as the on-TPU sort-pairing kernel (r4: 2.66e-5)
     assert err < 3.5e-5, err
 
 
@@ -228,8 +228,7 @@ def test_stride_const_multi_overflow_flag():
     """Equal multiplicities (const-multi init): colliding pairs leave the
     big SD at n=0 (recycling candidates, coal.ipp:243-246) and a
     multi-collision demand raises the overflow flag that drives the
-    adaptive sstp_coal growth (coal.ipp:224-227) — the resident kernel
-    emits it as puddle lane 6."""
+    adaptive sstp_coal growth (coal.ipp:224-227)."""
     rng = np.random.default_rng(3)
     cfg = _cfg()
     params = jnp.asarray([1500.0])

@@ -65,7 +65,7 @@ def _mesh_runner(cfg, cfg_l, m, widths, do_coal, buf=64):
         mesh=mesh,
         in_specs=(spec, P("x"), P("x"), dom_spec),
         out_specs=(spec, P("x"), P("x")),
-        # the resident fast path embeds pallas_call (no vma annotation)
+        # the condensation kernel's pallas_call (on an accelerator)
         check_vma=False,
     ))
     sharding = jax.tree_util.tree_map(
@@ -166,14 +166,19 @@ def test_dense_mesh_matches_serial(do_coal):
     assert (np.abs(res["x"] - 0) < cfg.dx).any() or True
 
 
-def test_dense_mesh_resident_interpret_matches_serial(monkeypatch):
-    """The mesh's fast path (dense.step_fused_shard: ONE resident kernel
-    per shard, x unwrapped, re-binning via rebin_sharded) must reproduce
-    the serial XLA engine with coalescence off — the same bitwise-grade
-    gate as the direct mesh path, through the Mosaic interpreter on CPU.
-    On TPU the same dispatch runs the compiled kernel (dryrun_multichip
-    tail + tools/ab_resident_hall.py cover it)."""
-    monkeypatch.setenv("LIBCLOUD_RESIDENT", "interpret")
+@pytest.mark.parametrize("kernel", [False, True])
+def test_dense_mesh_f32_matches_serial(monkeypatch, kernel):
+    """The f32 dense pipeline on the mesh (x unwrapped, re-binning via
+    rebin_sharded) must reproduce the serial f32 engine with coalescence
+    off.  kernel=True routes condensation through the Pallas kernel (in
+    interpret mode here), as on an accelerator — inside shard_map."""
+    if kernel:
+        from functools import partial as _partial
+        from libcloudphxx_tpu.lgrngn import condensation as cond
+        from libcloudphxx_tpu.ops import pallas_cond
+        monkeypatch.setattr(cond, "on_accelerator", lambda: True)
+        monkeypatch.setattr(pallas_cond, "advance_rw2_pallas", _partial(
+            pallas_cond.advance_rw2_pallas, interpret=True))
     m = _model()
     p = m.prtcls
     cfg = p.cfg
@@ -187,7 +192,7 @@ def test_dense_mesh_resident_interpret_matches_serial(monkeypatch):
     th0 = jnp.asarray(m.th, jnp.float32)
     rv0 = jnp.asarray(m.rv, jnp.float32)
     # keep the Eulerian advection in f32 too, so the serial reference's
-    # carry stays f32 (the resident path requires an f32 population)
+    # carry stays f32
     m.gc_x = jnp.asarray(m.gc_x, jnp.float32)
     m.gc_z = jnp.asarray(m.gc_z, jnp.float32)
     m.G = jnp.asarray(m.G, jnp.float32)
@@ -197,7 +202,6 @@ def test_dense_mesh_resident_interpret_matches_serial(monkeypatch):
         cfg, nx=max(widths),
         n_cell=max(widths) * cfg.nz,
         x0=0.0, x1=max(widths) * cfg.dx)
-    assert dm.resident_static_ok(cfg_l)
 
     n_steps = 4
     fser = _serial_step(cfg, m, False)

@@ -77,36 +77,3 @@ def test_dense_engine_golden(travis_run_dense):
     assert r[20]["th"]["max_rel"] <= 1e-3, r[20]["th"]
     assert r[20]["rv"]["max_rel"] <= 2.1e-3, r[20]["rv"]
     assert r[20]["sd_conc"]["max_abs"] <= 1.0, r[20]["sd_conc"]
-
-
-@pytest.fixture(scope="module")
-def travis_run_resident():
-    """The travis case through the RESIDENT Pallas kernel behind the public
-    3-phase API (round 5): dense_front dispatches the cond half in
-    step_cond and the coal+transport half in step_async; on CPU the kernel
-    runs under the Mosaic interpreter at f32."""
-    import sys
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
-                                    "tools"))
-    import golden_parity
-    os.environ["LIBCLOUD_RESIDENT"] = "interpret"
-    os.environ["LIBCLOUD_DENSE_F32"] = "1"
-    try:
-        snaps = golden_parity.run_travis(verbose=False, engine="dense")
-    finally:
-        os.environ.pop("LIBCLOUD_RESIDENT", None)
-        os.environ.pop("LIBCLOUD_DENSE_F32", None)
-    return golden_parity.compare(snaps, REFDATA)
-
-
-@pytest.mark.slow
-def test_resident_public_golden(travis_run_resident):
-    """fig_a gates through the resident-kernel public path — the headline
-    performance path must satisfy the same reference CI tolerances
-    (CMakeLists.txt:101-115)."""
-    r = travis_run_resident
-    for k in ("th", "rv", "sd_conc"):
-        assert r[0][k]["max_rel"] <= 1e-9, (k, r[0][k])
-    assert r[20]["th"]["max_rel"] <= 1e-3, r[20]["th"]
-    assert r[20]["rv"]["max_rel"] <= 2.1e-3, r[20]["rv"]
-    assert r[20]["sd_conc"]["max_abs"] <= 1.0, r[20]["sd_conc"]

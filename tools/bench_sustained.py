@@ -1,19 +1,18 @@
 """Sustained-workload throughput: the REAL GMD case, not the from-init rep.
 
-bench.py times the canonical from-init 100-step window (row capacity 128);
-the evolved population under rain concentrates SDs and can force larger
-row capacities, which the r4 protocol sidestepped (VERDICT r4 weak #2).
-This probe runs the icicle defaults (nt=3600, spinup=2400 — reference
-icicle.cpp:100-105) with the occupancy-aware repack policy
+bench.py times the canonical from-init 100-step window (row capacity 128); the
+evolved population under rain concentrates SDs and can force larger row
+capacities.  This probe runs the icicle defaults (nt=3600, spinup=2400 —
+reference icicle.cpp:100-105) with the occupancy-aware repack policy
 (run_device_lgrngn repack_every / chunk_log) and reports:
 
   - from-init ms/step (the bench.py protocol number, for reference)
   - per-chunk ms/step with the occupancy/capacity trajectory
   - sustained ms/step = median over the final TAIL steps' chunks
     (medians exclude compile-contaminated chunks: a capacity the run has
-    not seen before pays a fresh Mosaic compile inside its chunk)
+    not seen before pays a fresh compile inside its chunk)
 
-Writes SUSTAINED_r05.json at the repo root.
+Writes chiprun_out/sustained.json (a directory .gitignore lists).
 
 Usage: python tools/bench_sustained.py [nt] [spinup]
 """
@@ -25,15 +24,15 @@ import time
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.libcloudphxx_tpu_jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 import numpy as np  # noqa: E402
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
+import bench  # noqa: E402
 from libcloudphxx_tpu.models import Kinematic2D  # noqa: E402
+from libcloudphxx_tpu.utils import enable_compilation_cache  # noqa: E402
 
 NX = NZ = 76
 SD_CONC = 64
@@ -47,7 +46,9 @@ TAIL = min(1000, max(100, NT // 3))
 
 def main():
     t_all = time.perf_counter()
-    print(f"# devices: {jax.devices()}", flush=True)
+    enable_compilation_cache()
+    dev = bench.device_info()
+    print(f"# device: {dev}", flush=True)
     model = Kinematic2D(
         nx=NX, nz=NZ, micro="lgrngn", sd_conc=SD_CONC,
         sstp_cond=10, sstp_coal=10, n_sd_max=SD_CONC * NX * NZ,
@@ -112,11 +113,13 @@ def main():
                     ("step0", "steps", "spinup", "occ", "cap", "ms")}
                    for e in log],
         "wallclock_s": round(time.perf_counter() - t_all, 1),
+        "device": dev,
     }
     print(json.dumps({k: v for k, v in out.items() if k != "chunks"},
                      indent=1), flush=True)
-    with open(os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), "SUSTAINED_r05.json"), "w") as f:
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "sustained.json"),
+              "w") as f:
         json.dump(out, f, indent=1)
 
 

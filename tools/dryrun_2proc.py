@@ -1,7 +1,7 @@
 """Multi-controller cleanliness check: the sharded SDM step in 2 PROCESSES.
 
 The device mesh front-end (parallel/multi.py) normally runs single-process
-over N local devices.  True multi-host TPU runs are multi-controller: every
+over N local devices.  True multi-host runs are multi-controller: every
 process runs the SAME program, owns a subset of the devices, and global
 arrays exist across processes.  This dryrun proves the shard_map program is
 multi-controller-clean (VERDICT r3 item 9; reference analog: the MPI test

@@ -10,7 +10,7 @@ src/detail/kernel_utils.hpp:12-29).
 
 This script parses those published *data* tables once and stores each as a
 dense symmetric (n_idx, n_idx) float32 matrix in
-libcloudphxx_tpu/lgrngn/kernel_data/ — the TPU-friendly layout where the
+libcloudphxx_tpu/lgrngn/kernel_data/ — the layout where the
 pairwise lookup is a vectorized 2-D gather instead of branchy triangular
 indexing.
 

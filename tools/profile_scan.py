@@ -1,9 +1,8 @@
-"""Root-cause probe for the lax.scan pessimisation (VERDICT r3 item 8).
+"""Loop strategies for the device-resident lgrngn run, timed on the GPU.
 
-Round 3 measured the dense fused step 11x SLOWER inside lax.scan than
-host-chained (2402 vs 219 ms).  This tool re-measures on the current
-engine (incl. the r4 kernel-resident step) across loop strategies:
-  chained      - python loop over one jitted step (the production default)
+The engines default to host-chained steps (dense) and lax.scan (flat);
+this tool measures the dense step under:
+  chained      - python loop over one jitted step (the dense default)
   scan         - jax.lax.scan over the same step
   scan+donate  - scan with the carry donated (jit donate_argnums)
   window K     - python loop over jitted scan-of-K-step chunks
@@ -18,9 +17,6 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.expanduser("~/.libcloudphxx_tpu_jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 import jax.numpy as jnp
 import numpy as np
 
@@ -39,8 +35,13 @@ def timeit(fn, carry, reps=N):
 
 
 def main():
+    import bench
     from libcloudphxx_tpu.models import Kinematic2D
     from libcloudphxx_tpu.lgrngn import dense as dm
+    from libcloudphxx_tpu.utils import enable_compilation_cache
+
+    enable_compilation_cache()
+    print(f"# device: {bench.device_info()}", flush=True)
 
     m = Kinematic2D(nx=76, nz=76, micro="lgrngn", sd_conc=64,
                     sstp_cond=10, sstp_coal=10, n_sd_max=64 * 76 * 76)
